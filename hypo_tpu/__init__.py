@@ -1,7 +1,7 @@
-"""hypo_tpu — a TPU-native hybrid genome-assembly polisher.
+"""hypo_tpu — a hybrid genome-assembly polisher whose window consensus
+runs on a GPU through JAX.
 
-A from-scratch reimplementation of the capabilities of kensung-lab/hypo
-(reference: /root/reference) designed TPU-first:
+A from-scratch reimplementation of the capabilities of kensung-lab/hypo:
 
 - sequence data lives in flat uint8/uint32 numpy arrays on the host and
   fixed-shape batched tensors on the device;
@@ -12,7 +12,7 @@ A from-scratch reimplementation of the capabilities of kensung-lab/hypo
   vectorized segment scans over position arrays (``hypo_tpu.segment``);
 - window consensus (reference src/Window.cpp + adapted spoa) is a
   partial-order-alignment engine with an exact NumPy oracle
-  (``hypo_tpu.poa``) and a batched JAX/Pallas DP kernel for the device
+  (``hypo_tpu.poa``) and a batched JAX tile program for the device
   hot loop;
 - the pipeline (reference src/Hypo.cpp) orchestrates batches of contigs
   and shards windows across a ``jax.sharding.Mesh`` (``hypo_tpu.parallel``).

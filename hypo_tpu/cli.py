@@ -14,8 +14,8 @@ from .config import (STAGE_BEG, InputFlags, ScoreParams, get_expected_file_sz,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="hypo_tpu",
-        description="TPU-native hybrid assembly polisher "
-                    "(capabilities of kensung-lab/hypo)")
+        description="hybrid assembly polisher with GPU window "
+                    "consensus (capabilities of kensung-lab/hypo)")
     ap.add_argument("-r", "--reads-short", required=True, action="append",
                     help="short reads (fasta/fastq[.gz]); @file-of-names "
                          "supported; repeatable")
@@ -40,8 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-i", "--intermed", action="store_true")
     ap.add_argument("--device-poa", action="store_true", default=None,
                     help="force window consensus onto the JAX device "
-                         "path (default: auto — device iff a TPU "
-                         "backend is present)")
+                         "path (default: auto — device iff JAX's "
+                         "default backend is a GPU)")
     ap.add_argument("--no-device-poa", dest="device_poa",
                     action="store_false",
                     help="force the host consensus engine")
@@ -52,13 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "bit-identical to the host engine")
     ap.add_argument("--aux-dir", default="aux")
     ap.add_argument("--nproc", type=int, default=1,
-                    help="number of polishing processes (hosts); contigs "
-                         "are split into contiguous draft-order ranges")
+                    help="number of polishing processes; contigs are "
+                         "split into contiguous draft-order ranges.  "
+                         "Without --coordinator, process i takes card "
+                         "i %% (visible cards)")
     ap.add_argument("--procid", type=int, default=0,
                     help="this process's rank in [0, nproc)")
     ap.add_argument("--coordinator", default="",
                     help="jax.distributed coordinator address "
-                         "(host:port) for pod slices; optional")
+                         "(host:port) for several hosts; optional")
     ap.add_argument("--inspect", action="store_true",
                     help="write aux/regions.bed and aux/inspect.txt "
                          "(reference generate_inspect_file artifacts)")

@@ -103,8 +103,8 @@ class InputFlags:
     window_settings: WindowSettings = dataclasses.field(
         default_factory=WindowSettings)
     # device/bench knobs (no reference equivalent).
-    # use_device_poa: None = auto (device path iff a TPU backend is
-    # present), True/False = force.
+    # use_device_poa: None = auto (device path iff JAX's default backend
+    # is a GPU), True/False = force.
     use_device_poa: Optional[bool] = None
     # "full": entire POA on device, one dispatch per bucket (column-POA
     #         tie-breaking, hypo_tpu.poa.device_full)
@@ -117,7 +117,7 @@ class InputFlags:
     # BAM slice and writes output.shard{pid}; rank 0 gathers.
     num_processes: int = 1
     process_id: int = 0
-    coordinator: str = ""  # jax.distributed coordinator (pod slices)
+    coordinator: str = ""  # jax.distributed coordinator (several hosts)
 
     def __post_init__(self):
         if not self.legacy_dead_set_kind:

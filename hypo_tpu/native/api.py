@@ -8,29 +8,16 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-_DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "poa_native.cpp")
-_LIB = os.path.join(_DIR, "libhypo_poa.so")
+from .build import build_library
+
 _lock = threading.Lock()
 _lib = None
 _tried = False
-
-
-def _build() -> bool:
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
-           "-march=native", _SRC, "-o", _LIB + ".tmp"]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.replace(_LIB + ".tmp", _LIB)
-        return True
-    except Exception:
-        return False
 
 
 def _load():
@@ -39,12 +26,11 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        need_build = (not os.path.exists(_LIB)
-                      or os.path.getmtime(_LIB) < os.path.getmtime(_SRC))
-        if need_build and not _build():
+        path = build_library("poa_native.cpp", "libhypo_poa", ())
+        if path is None:
             return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
         c = ctypes.c_void_p

@@ -1,8 +1,8 @@
-"""Multi-host (pod-slice) distribution for the polishing pipeline.
+"""Multi-process distribution for the polishing pipeline.
 
 The reference is a single OpenMP process (SURVEY §2.3); its only scaling
-knob beyond threads is contig batching.  The TPU-native layout over a
-pod slice:
+knob beyond threads is contig batching.  The layout over several
+processes (one per card on one machine, or one per host):
 
 - **Contigs shard across hosts** (size-balanced greedy assignment, no
   in-program communication): each host streams its own slice of the
@@ -17,7 +17,7 @@ pod slice:
   contigs are not device state).
 
 On a single process everything degrades to the local path, which keeps
-this module fully testable without pod hardware.
+this module testable on one machine.
 """
 from __future__ import annotations
 
@@ -40,6 +40,37 @@ def initialize(coordinator_address: Optional[str] = None,
             coordinator_address=coordinator_address,
             num_processes=num_processes, process_id=process_id)
     return jax.process_index(), jax.process_count()
+
+
+def visible_card_count() -> int:
+    """CUDA devices this process can see, counted through the CUDA
+    driver rather than JAX, whose backend must not start before
+    ``pin_process_to_card``.  0 where there is no driver or no card."""
+    import ctypes
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return 0
+    n = ctypes.c_int(0)
+    if cuda.cuInit(0) != 0 or cuda.cuDeviceGetCount(ctypes.byref(n)) != 0:
+        return 0
+    return n.value
+
+
+def pin_process_to_card(process_id: int,
+                        n_cards: Optional[int] = None) -> Optional[int]:
+    """Restrict this process to card ``process_id % n_cards`` of the
+    visible ones, so that ``--nproc`` processes on one machine take one
+    card each (a JAX process reserves most of every card it opens).
+    Must run before JAX initialises its backend.  Returns the card
+    index, or None where no card is visible."""
+    if n_cards is None:
+        n_cards = visible_card_count()
+    if n_cards == 0:
+        return None
+    card = process_id % n_cards
+    jax.config.update("jax_cuda_visible_devices", str(card))
+    return card
 
 
 def shard_contigs_contiguous(lengths: Sequence[int], num_shards: int

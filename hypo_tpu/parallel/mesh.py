@@ -1,6 +1,6 @@
-"""Multi-chip mesh helpers for the polishing pipeline.
+"""Multi-device mesh helpers for the polishing pipeline.
 
-The reference is single-node OpenMP (SURVEY §2.3); the TPU-native
+The reference is single-node OpenMP (SURVEY §2.3); the multi-device
 scaling design is:
 
 - windows are embarrassingly parallel after arm fill -> the production

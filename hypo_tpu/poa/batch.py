@@ -1,7 +1,7 @@
 """Device-batched window consensus: schedules many windows' POA rounds
 through the jitted DP kernel in jax_poa, with host-side graph merges.
 
-Execution model (TPU-first): all windows advance in lockstep "arm
+Execution model: all windows advance in lockstep "arm
 rounds".  Round r batches the r-th sequence of every still-active window
 into fixed-shape (N, L) buckets, runs one vmapped DP per bucket on
 device, then merges the tracebacks into each window's host graph.  The
@@ -18,6 +18,7 @@ import numpy as np
 
 from ..config import ScoreParams
 from ..dna import decode
+from ..utils.jax_cache import enable_compilation_cache
 from .align import PoaAligner
 from .engine import CURATE_THRESH, HEAD, TAIL
 from .graph import Graph
@@ -56,25 +57,10 @@ class _Job:
         self.ext = None           # cached graph arrays for this round
 
 
-def _enable_compilation_cache() -> None:
-    """Persist jit compilations across runs (first-compile latency of the
-    bucketed DP kernels is the dominant small-run cost)."""
-    import os
-
-    import jax
-    try:
-        cache = os.path.expanduser("~/.cache/hypo_tpu_jax")
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
-
-
 class DeviceConsensusRunner:
     def __init__(self, sp: ScoreParams, fix_long_align_type: bool = False,
                  use_native: bool = None):
-        _enable_compilation_cache()
+        enable_compilation_cache()
         self.sp = sp
         self.short_scores = (sp.sr_match, sp.sr_mismatch, sp.sr_gap)
         self.long_scores = (sp.lr_match, sp.lr_mismatch, sp.lr_gap)

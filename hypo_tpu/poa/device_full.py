@@ -5,11 +5,9 @@ batch tile.
 
 Motivation: the reference's per-arm loop (align -> add_alignment ->
 re-topo-sort, external/spoa/src/graph.cpp:154-353) forces one
-host<->device round trip per arm round when only the DP runs on device;
-with hundreds of rounds per batch and tens-of-ms dispatch latency the
-device path was latency-bound, not compute-bound.  This kernel removes
-every round trip: the host uploads packed arms once and downloads the
-finished consensus once.
+host<->device round trip per arm round when only the DP runs on device.
+This program removes every round trip: the host uploads packed arms once
+and downloads the finished consensus once.
 
 Algorithm ("column-POA"): the executable NumPy twin with identical
 tie-breaking lives in hypo_tpu.poa.colpoa_ref (see its docstring for
@@ -21,19 +19,18 @@ the two deliberate tie-order differences vs spoa).  Key ideas:
   holds at most NCODES nodes, so ranks are computed by COUNTING
   (nodes in earlier columns + smaller ids in the same column) — no
   argsort anywhere.
-- ALL irregular indexing is expressed as small one-hot compare+reduce
-  or one-hot f32 matmuls (exact for values < 2^24).  This TPU runs
-  XLA gathers at ~100M elem/s but one-hot reductions at full VPU/MXU
-  rate — the hardware has no fast scatter OR gather, but it has very
-  fast compares, reductions and matmuls.
+- irregular indexing is expressed as one-hot compare+reduce or one-hot
+  matrix products.  Every such product goes through ``_ohdot``, which
+  is exact for the integer values carried here (node ids, supports,
+  edge weights): a float32 product at the default precision may run in
+  TF32 on a GPU, which rounds any value above 2048.
 - the merge of an alignment path is fully vectorized: the path reduces
   to per-arm-position arrays (matched rank, last-matched cummax), and
   all node creation / column insertion / edge upsert / support updates
   are unique-index one-hot updates.
 - traceback runs as a batched while loop whose body does O(B) work per
-  step; heaviest-bundle consensus runs on the SCALAR core (a Pallas
-  kernel, hypo_tpu.poa.pallas_consensus) because it is sequential per
-  window, with a data-parallel XLA wavefront fallback off-TPU.
+  step; heaviest-bundle consensus is a data-parallel wavefront
+  relaxation iterated to its fixpoint.
 
 Everything is fixed-shape: N node/column capacity, L arm length cap,
 K arm count cap, P predecessor cap.  Windows that overflow any cap get
@@ -107,20 +104,24 @@ class RankArrays(NamedTuple):
 # All irregular reads/writes below hit UNIQUE indices (an alignment
 # path visits each column/node/edge at most once — see colpoa_ref), so
 # gather reduces to a masked max over a one-hot and scatter reduces to
-# sum-over-sources, computed as compare+reduce or f32 matmuls (values
-# here are < 2^24, so f32 is exact).  XLA gathers/scatters on TPU
-# serialize; these do not.
+# sum-over-sources.
 
 
 def _oh(idx, mask, M: int):
-    sel = jnp.where(mask, idx, -1)
-    return (sel[..., None] == jnp.arange(M, dtype=jnp.int32)
-            ).astype(jnp.float32)
-
-
-def _ohb(idx, mask, M: int):
+    """Boolean one-hot [..., M] of idx, all-false where ~mask."""
     sel = jnp.where(mask, idx, -1)
     return sel[..., None] == jnp.arange(M, dtype=jnp.int32)
+
+
+def _ohdot(spec: str, a, b):
+    """Exact integer einsum of two integer/boolean operands -> int32.
+
+    The operands are one-hots and integer values below 2^24, so a
+    float32 product is exact only at HIGHEST precision (DEFAULT may use
+    TF32, which keeps 11 significant bits)."""
+    return jnp.einsum(spec, a.astype(jnp.float32), b.astype(jnp.float32),
+                      precision=jax.lax.Precision.HIGHEST
+                      ).astype(jnp.int32)
 
 
 def _selmax(ohb, vals, default):
@@ -131,13 +132,13 @@ def _selmax(ohb, vals, default):
 
 
 def _mv(oh, vals):
-    """sum_l oh[l, m] * vals[l] -> [M] f32 (per window; vmapped)."""
-    return jnp.einsum("lm,l->m", oh, vals.astype(jnp.float32))
+    """sum_l oh[l, m] * vals[l] -> [M] i32 (per window; vmapped)."""
+    return _ohdot("lm,l->m", oh, vals)
 
 
 def _set_oh(old, oh, vals):
     val = _mv(oh, vals)
-    cov = jnp.sum(oh, axis=0) > 0
+    cov = jnp.any(oh, axis=0)
     return jnp.where(cov, val.astype(old.dtype), old)
 
 
@@ -153,32 +154,30 @@ def _rank_arrays_batch(st: PoaState, N: int) -> RankArrays:
     col_cnt = jnp.sum(st.col_node >= 0, axis=2)          # [B, N]
     pos = st.col_pos
     before = ((pos[:, None, :] < pos[:, :, None])
-              & cvalid[:, None, :]).astype(jnp.float32)  # [B, c, c']
-    base_col = jnp.einsum("bcd,bd->bc", before,
-                          col_cnt.astype(jnp.float32)).astype(jnp.int32)
-    oh_ncol = _ohb(st.node_col, nvalid, N)               # [B, v, c]
+              & cvalid[:, None, :])                      # [B, c, c']
+    base_col = _ohdot("bcd,bd->bc", before, col_cnt)
+    oh_ncol = _oh(st.node_col, nvalid, N)                # [B, v, c]
     base_at = _selmax(oh_ncol, base_col[:, None, :], 0)
     within = jnp.sum(
         (st.node_col[:, :, None] == st.node_col[:, None, :])
         & (idx[None, None, :] < idx[None, :, None])
         & nvalid[:, None, :], axis=2).astype(jnp.int32)
     rank_of = jnp.where(nvalid, base_at + within, BIG)
-    oh_rank = _ohb(rank_of, nvalid, N)                   # [B, v, r]
+    oh_rank = _oh(rank_of, nvalid, N)                    # [B, v, r]
     order = jnp.max(jnp.where(oh_rank, idx[None, :, None], 0),
                     axis=1).astype(jnp.int32)            # [B, r]
     # pred ranks (node-id space), via one flat one-hot reduce
     pn = st.pred_nd.reshape(B, N * P)
-    ohp = _ohb(pn, pn >= 0, N)                           # [B, N*P, v]
+    ohp = _oh(pn, pn >= 0, N)                            # [B, N*P, v]
     pred_rank_un = _selmax(ohp, rank_of[:, None, :], -1
                            ).reshape(B, N, P)
-    # permute every per-node array to rank order with ONE f32 matmul
+    # permute every per-node array to rank order with ONE product
     payload = jnp.concatenate([
         st.node_code[:, :, None], st.node_col[:, :, None],
         st.node_sup[:, :, None], st.pred_cnt[:, :, None],
         st.out_cnt[:, :, None], st.pred_nd, st.pred_w,
-        pred_rank_un], axis=2).astype(jnp.float32)       # [B, v, D]
-    perm = jnp.einsum("bvr,bvd->brd", oh_rank.astype(jnp.float32),
-                      payload).astype(jnp.int32)         # [B, r, D]
+        pred_rank_un], axis=2)                           # [B, v, D]
+    perm = _ohdot("bvr,bvd->brd", oh_rank, payload)      # [B, r, D]
     node_code_r = perm[:, :, 0]
     node_col_r = perm[:, :, 1]
     node_sup_r = perm[:, :, 2]
@@ -321,17 +320,14 @@ def _merge(st: PoaState, order, node_col_r, matched, arm, arm_len, w,
     valid_j = jj < arm_len
     is_match = (matched >= 0) & valid_j
     # resolve matched nodes through their column
-    oh_m = _ohb(matched, is_match, N)                   # [L, N(rank)]
+    oh_m = _oh(matched, is_match, N)                    # [L, N(rank)]
     node0 = _selmax(oh_m, order[None, :], 0)
     c_match = _selmax(oh_m, node_col_r[None, :], 0)
-    oh_cm = _ohb(c_match, is_match, N)                  # [L, N(col)]
-    m6 = jnp.einsum("lc,ck->lk", oh_cm.astype(jnp.float32),
-                    st.col_node.astype(jnp.float32))    # [L, NCODES]
-    oh_code = _ohb(arm, valid_j, NCODES)
+    oh_cm = _oh(c_match, is_match, N)                   # [L, N(col)]
+    m6 = _ohdot("lc,ck->lk", oh_cm, st.col_node)        # [L, NCODES]
+    oh_code = _oh(arm, valid_j, NCODES)
     exist = jnp.where(
-        is_match,
-        jnp.sum(jnp.where(oh_code, m6.astype(jnp.int32), 0), axis=1),
-        -1)
+        is_match, jnp.sum(jnp.where(oh_code, m6, 0), axis=1), -1)
     creates_node = valid_j & ((~is_match) | (exist < 0))
     new_ord = jnp.cumsum(creates_node.astype(jnp.int32))
     node_j = jnp.where(creates_node, st.n_nodes - 1 + new_ord,
@@ -355,15 +351,15 @@ def _merge(st: PoaState, order, node_col_r, matched, arm, arm_len, w,
                      -BIG)
     lastpos = jnp.maximum(jax.lax.cummax(mpos), -1)
     lastj = jax.lax.cummax(jnp.where(is_match, jj, -1))
-    hist = jnp.sum(_oh(lastpos + 1, is_ins, N + 1), axis=0
-                   ).astype(jnp.int32)
+    hist = jnp.sum(_oh(lastpos + 1, is_ins, N + 1), axis=0,
+                   dtype=jnp.int32)
     cs = jnp.cumsum(hist)            # cs[q+1] = #ins anchored at <= q
     cidx = jnp.arange(N, dtype=jnp.int32)
-    oh_cp = _ohb(jnp.minimum(st.col_pos, N), jnp.full((N,), True), N + 1)
+    oh_cp = _oh(jnp.minimum(st.col_pos, N), jnp.full((N,), True), N + 1)
     cs_at_pos = _selmax(oh_cp, cs[None, :], 0)
     col_pos_exist = jnp.where(cidx < st.n_cols,
                               st.col_pos + cs_at_pos, st.col_pos)
-    oh_lp = _ohb(jnp.maximum(lastpos, 0), jnp.full((L,), True), N + 1)
+    oh_lp = _oh(jnp.maximum(lastpos, 0), jnp.full((L,), True), N + 1)
     anchor_shift = jnp.where(lastpos >= 0,
                              _selmax(oh_lp, cs[None, :], 0), 0)
     pos_new = lastpos + anchor_shift + (jj - lastj)
@@ -374,46 +370,37 @@ def _merge(st: PoaState, order, node_col_r, matched, arm, arm_len, w,
     node_code = _set_oh(st.node_code, oh_node, arm)
     node_col = _set_oh(st.node_col, oh_node, col_j)
     wv = jnp.broadcast_to(w, (L,))
-    node_sup = st.node_sup + _mv(_oh(node_j, valid_j, N), wv
-                                 ).astype(jnp.int32)
+    node_sup = st.node_sup + _mv(_oh(node_j, valid_j, N), wv)
     # col_node[(col, code)] := node id — factored one-hots
     oh_cc = _oh(col_j, creates_node, N)                 # [L, N]
     oh_code_c = _oh(arm, creates_node, NCODES)          # [L, NCODES]
-    cn_val = jnp.einsum("ln,lc->nc", oh_cc * node_j.astype(jnp.float32
-                                                           )[:, None],
-                        oh_code_c)
-    cn_cov = jnp.einsum("ln,lc->nc", oh_cc, oh_code_c) > 0
-    col_node = jnp.where(cn_cov, cn_val.astype(jnp.int32), st.col_node)
+    cn_val = _ohdot("ln,lc->nc", oh_cc * node_j[:, None], oh_code_c)
+    cn_cov = _ohdot("ln,lc->nc", oh_cc, oh_code_c) > 0
+    col_node = jnp.where(cn_cov, cn_val, st.col_node)
 
     # edge upserts between consecutive emitted bases
     u = jnp.concatenate([jnp.full((1,), -1, jnp.int32), node_j[:-1]])
     v = node_j
     edge_valid = valid_j & (jj >= 1)
     oh_v = _oh(v, edge_valid, N)                        # [L, N]
-    pv = jnp.einsum("ln,np->lp", oh_v,
-                    st.pred_nd.astype(jnp.float32)).astype(jnp.int32)
-    vcnt = jnp.einsum("ln,n->l", oh_v,
-                      st.pred_cnt.astype(jnp.float32)).astype(jnp.int32)
+    pv = _ohdot("ln,np->lp", oh_v, st.pred_nd)
+    vcnt = _ohdot("ln,n->l", oh_v, st.pred_cnt)
     hit = (pv == u[:, None]) & edge_valid[:, None]
     has = jnp.any(hit, axis=1) & edge_valid
     slot = jnp.where(has, jnp.argmax(hit, axis=1), vcnt)
     ovf = ovf | jnp.any(edge_valid & ~has & (slot >= P))
     slot_c = jnp.minimum(slot, P - 1)
     oh_s_ev = _oh(slot_c, edge_valid, P)
-    pred_w = st.pred_w + jnp.einsum(
-        "ln,lp->np", oh_v * wv.astype(jnp.float32)[:, None], oh_s_ev
-    ).astype(jnp.int32)
+    pred_w = st.pred_w + _ohdot("ln,lp->np", oh_v * wv[:, None], oh_s_ev)
     newslot = edge_valid & ~has
     oh_v_ns = _oh(v, newslot, N)
     oh_s_ns = _oh(slot_c, newslot, P)
-    nd_val = jnp.einsum("ln,lp->np", oh_v_ns * u.astype(jnp.float32
-                                                        )[:, None],
-                        oh_s_ns)
-    nd_cov = jnp.einsum("ln,lp->np", oh_v_ns, oh_s_ns) > 0
-    pred_nd = jnp.where(nd_cov, nd_val.astype(jnp.int32), st.pred_nd)
-    pred_cnt = st.pred_cnt + jnp.sum(oh_v_ns, axis=0).astype(jnp.int32)
-    out_cnt = st.out_cnt + jnp.sum(_oh(u, newslot, N), axis=0
-                                   ).astype(jnp.int32)
+    nd_val = _ohdot("ln,lp->np", oh_v_ns * u[:, None], oh_s_ns)
+    nd_cov = _ohdot("ln,lp->np", oh_v_ns, oh_s_ns) > 0
+    pred_nd = jnp.where(nd_cov, nd_val, st.pred_nd)
+    pred_cnt = st.pred_cnt + jnp.sum(oh_v_ns, axis=0, dtype=jnp.int32)
+    out_cnt = st.out_cnt + jnp.sum(_oh(u, newslot, N), axis=0,
+                                   dtype=jnp.int32)
 
     new_st = PoaState(
         node_code=node_code, node_col=node_col, node_sup=node_sup,
@@ -425,35 +412,25 @@ def _merge(st: PoaState, order, node_col_r, matched, arm, arm_len, w,
 
 
 def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
-                    N, L, P, m, n, g, dp_impl):
+                    N, L, P, m, n, g):
     """One arm round for the WHOLE window batch: rank/merge are one-hot
     vector passes, the traceback is a single batched lockstep loop, and
-    the DP — the dominant compute — runs as ONE batched kernel call, so
-    the Pallas kernel (pallas_poa) serves the production path (the
-    reference's analog is its SIMD engine,
+    the DP runs as one vmapped row scan over the batch (the reference's
+    analog is its SIMD engine,
     external/spoa/src/simd_alignment_engine.cpp:46-142).
 
     st leaves carry a leading batch dim B; arm [B, L]; arm_len, mode,
     active [B]."""
     ra = _rank_arrays_batch(st, N)
     # windows that are done with their arms (or empty this round) are
-    # masked out of the DP (n_nodes -> 0 skips their rows via the
-    # kernel's per-block row bound) and start the traceback already
-    # stopped — without this, a tile mixing high- and low-arm-count
-    # windows pays full-batch DP/traceback on every extra arm step
+    # masked out of the DP (n_nodes -> 0) and start the traceback
+    # already stopped
     act = active & (arm_len > 0) & (st.n_nodes > 0)
     nn_eff = jnp.where(act, st.n_nodes, 0)
-    if dp_impl in ("pallas", "pallas_interpret"):
-        from .pallas_poa import poa_dp_batch_pallas
-        bp, max_row = poa_dp_batch_pallas(
-            ra.node_code_r, ra.pred_rows, ra.pred_cnt_r, ra.is_end_r,
-            nn_eff, arm, arm_len, mode, N=N, L=L, P=P, m=m, n=n,
-            g=g, interpret=(dp_impl == "pallas_interpret"))
-    else:
-        bp, max_row = jax.vmap(functools.partial(
-            _dp, N=N, L=L, P=P, m=m, n=n, g=g))(
-                ra.node_code_r, ra.pred_rows, ra.pred_cnt_r,
-                ra.is_end_r, nn_eff, arm, arm_len, mode)
+    bp, max_row = jax.vmap(functools.partial(
+        _dp, N=N, L=L, P=P, m=m, n=n, g=g))(
+            ra.node_code_r, ra.pred_rows, ra.pred_cnt_r,
+            ra.is_end_r, nn_eff, arm, arm_len, mode)
     # empty graphs (the first arm round of a tile) need no traceback:
     # everything is an insertion.  The batched walk is a ~N+L-step
     # sequential loop, so skip it entirely when no window needs it
@@ -485,9 +462,9 @@ def _arm_step_batch(st: PoaState, arm, arm_len, mode, active, w=None, *,
 
 def _consensus_wavefront(ra: RankArrays, nn, *, N, P,
                          max_branch_iters):
-    """XLA fallback for heaviest-bundle consensus (CPU and non-Pallas
-    backends): a data-parallel WAVEFRONT relaxation — every node
-    relaxes from its predecessors' current scores simultaneously,
+    """Heaviest-bundle consensus as a data-parallel WAVEFRONT
+    relaxation — every node relaxes from its predecessors' current
+    scores simultaneously,
     iterated to fixpoint (on a DAG the fixpoint is unique and equals
     the sequential result, reached within longest-path rounds).
     Returns (codes_bwd, sups_bwd, cons_len)."""
@@ -607,26 +584,16 @@ def _consensus_wavefront(ra: RankArrays, nn, *, N, P,
     return codes_bwd, sups_bwd, cons_len
 
 
-def _consensus_batch(st: PoaState, *, N, P, dp_impl,
-                     max_branch_iters=None):
+def _consensus_batch(st: PoaState, *, N, P, max_branch_iters=None):
     """Heaviest-bundle consensus with spoa's tie rule and branch
     completion (graph.cpp:610-705), in rank space, for the whole
-    batch.  On TPU the sequential per-window relaxation runs on the
-    scalar core (pallas_consensus); elsewhere an XLA wavefront computes
-    the identical fixpoint."""
+    batch."""
     if max_branch_iters is None:
         max_branch_iters = N
     ra = _rank_arrays_batch(st, N)
     nn = st.n_nodes
-    if dp_impl in ("pallas", "pallas_interpret"):
-        from .pallas_consensus import heaviest_bundle_pallas
-        codes_bwd, sups_bwd, cons_len = heaviest_bundle_pallas(
-            ra.pred_ranks, ra.pred_w_r, ra.pred_cnt_r, ra.is_end_r,
-            ra.node_code_r, ra.node_sup_r, nn, ra.rank_of[:, 0],
-            N=N, P=P, interpret=(dp_impl == "pallas_interpret"))
-    else:
-        codes_bwd, sups_bwd, cons_len = _consensus_wavefront(
-            ra, nn, N=N, P=P, max_branch_iters=max_branch_iters)
+    codes_bwd, sups_bwd, cons_len = _consensus_wavefront(
+        ra, nn, N=N, P=P, max_branch_iters=max_branch_iters)
     narange = jnp.arange(N, dtype=jnp.int32)
     ridx = jnp.maximum(cons_len[:, None] - 1 - narange[None, :], 0)
     cons_codes = jnp.take_along_axis(codes_bwd, ridx, 1)
@@ -634,55 +601,42 @@ def _consensus_batch(st: PoaState, *, N, P, dp_impl,
     return cons_codes, cons_sup, cons_len
 
 
-def resolve_dp_impl(dp_impl: str = "auto") -> str:
-    """'auto' -> the Pallas kernels on TPU, the XLA paths elsewhere.
-    HYPO_DP_IMPL overrides (xla | pallas | pallas_interpret)."""
-    import os
-    env = os.environ.get("HYPO_DP_IMPL")
-    if env:
-        return env
-    if dp_impl != "auto":
-        return dp_impl
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
-
-
 @functools.partial(jax.jit,
-                   static_argnames=("N", "L", "K", "P", "m", "n", "g",
-                                    "dp_impl"))
-def _poa_full_batch_impl(arms, arm_len, arm_mode, n_arms, *, N, L, K, P,
-                         m, n, g, dp_impl):
+                   static_argnames=("N", "L", "K", "P", "m", "n", "g"))
+def _poa_full_batch_impl(arms, arm_len, arm_mode, n_arms, arm_w, *, N, L,
+                         K, P, m, n, g):
     B = arms.shape[0]
     st = _bcast_state(N, P, B)
 
     def step(st, inp):
-        arm, alen, mode, k = inp          # [B, L], [B], [B], scalar
-        st = _arm_step_batch(st, arm, alen, mode, k < n_arms,
-                             N=N, L=L, P=P, m=m, n=n, g=g,
-                             dp_impl=dp_impl)
+        arm, alen, mode, w, k = inp       # [B, L], [B], [B], [B], scalar
+        st = _arm_step_batch(st, arm, alen, mode, k < n_arms, w,
+                             N=N, L=L, P=P, m=m, n=n, g=g)
         return st, None
 
     st, _ = jax.lax.scan(
         step, st,
-        (arms.transpose(1, 0, 2), arm_len.T, arm_mode.T,
+        (arms.transpose(1, 0, 2), arm_len.T, arm_mode.T, arm_w.T,
          jnp.arange(K, dtype=jnp.int32)))
-    cons_codes, cons_sup, cons_len = _consensus_batch(
-        st, N=N, P=P, dp_impl=dp_impl)
+    cons_codes, cons_sup, cons_len = _consensus_batch(st, N=N, P=P)
     return cons_codes, cons_sup, cons_len, st.ovf
 
 
 def poa_full_batch(arms, arm_len, arm_mode, n_arms, *, N: int, L: int,
-                   K: int, P: int, m: int, n: int, g: int,
-                   dp_impl: str = "auto"):
+                   K: int, P: int, m: int, n: int, g: int, arm_w=None):
     """Full POA for a batch of windows in one device program.
 
     arms [B, K, L] i32 global codes; arm_len [B, K] i32;
-    arm_mode [B, K] i32 (NW/LOV/ROV); n_arms [B] i32.
+    arm_mode [B, K] i32 (NW/LOV/ROV); n_arms [B] i32; arm_w [B, K] i32
+    multiplicity weights (default 1, see _merge).
     Returns (cons_codes [B, N], cons_sup [B, N], cons_len [B],
     ovf [B] bool).
     """
+    if arm_w is None:
+        arm_w = np.ones(np.shape(arm_len), np.int32)
     return _poa_full_batch_impl(
-        arms, arm_len, arm_mode, n_arms, N=N, L=L, K=K, P=P,
-        m=m, n=n, g=g, dp_impl=resolve_dp_impl(dp_impl))
+        arms, arm_len, arm_mode, n_arms, arm_w, N=N, L=L, K=K, P=P,
+        m=m, n=n, g=g)
 
 
 # -- tile program (the production runner's path) ------------------------------
@@ -703,13 +657,13 @@ def _bcast_state(N: int, P: int, B: int) -> PoaState:
         lambda x: jnp.broadcast_to(x, (B,) + jnp.shape(x)), st0)
 
 
-def _finish_packed(st: PoaState, th, *, N, P, dp_impl):
+def _finish_packed(st: PoaState, th, *, N, P):
     """Consensus + on-device curation + nibble packing.  th [B] i32 is
     the per-window curate threshold (0 keeps every base, the
     short-window case); filtering on device means the support array
-    never crosses the (slow) device->host link.  Output int8
+    never crosses to the host.  Output int8
     [B, N//2 + 4]: nibble-packed codes | len lo | len hi | ovf | 0."""
-    cc, cs, cl = _consensus_batch(st, N=N, P=P, dp_impl=dp_impl)
+    cc, cs, cl = _consensus_batch(st, N=N, P=P)
     idx = jnp.arange(N, dtype=jnp.int32)[None, :]
     keep = (idx < cl[:, None]) & (cs >= th[:, None])
     dst = jnp.cumsum(keep.astype(jnp.int32), axis=1) - 1
@@ -732,8 +686,7 @@ def _finish_packed(st: PoaState, th, *, N, P, dp_impl):
 
 @functools.lru_cache(maxsize=None)
 def build_tile_program(*, N: int, L: int, K: int, P: int, m: int,
-                       n: int, g: int, B: int, A: int, dp_impl: str,
-                       ndev: int):
+                       n: int, g: int, B: int, A: int, ndev: int):
     """Returns one jitted callable
     ``tile(pool i8 [A, L], plen i32 [A], idx i32 [B, K], amode i8
     [B, K], aw i32 [B, K], narms i32 [B], th i32 [B]) -> i8
@@ -763,10 +716,10 @@ def build_tile_program(*, N: int, L: int, K: int, P: int, m: int,
             w = jax.lax.dynamic_slice_in_dim(aw, k, 1, 1)[:, 0]
             return _arm_step_batch(
                 st, arm, al, md.astype(jnp.int32), active, w,
-                N=N, L=L, P=P, m=m, n=n, g=g, dp_impl=dp_impl)
+                N=N, L=L, P=P, m=m, n=n, g=g)
 
         st = jax.lax.fori_loop(0, kmax, body, st)
-        return _finish_packed(st, th, N=N, P=P, dp_impl=dp_impl)
+        return _finish_packed(st, th, N=N, P=P)
 
     if ndev <= 1:
         return jax.jit(tile_local)
@@ -780,24 +733,8 @@ def build_tile_program(*, N: int, L: int, K: int, P: int, m: int,
         out_specs=pb, check_vma=False))
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("N", "L", "K", "P", "m", "n", "g",
-                                    "dp_impl"))
-def _poa_full_batch_packed_impl(arms, arm_len, arm_mode, n_arms, *,
-                                N, L, K, P, m, n, g, dp_impl):
-    cc, cs, cl, ovf = _poa_full_batch_impl(
-        arms, arm_len, arm_mode, n_arms, N=N, L=L, K=K, P=P,
-        m=m, n=n, g=g, dp_impl=dp_impl)
-    return jnp.concatenate(
-        [cc, cs, cl[:, None], ovf.astype(jnp.int32)[:, None]], axis=1)
-
-
-def poa_full_batch_packed(arms, arm_len, arm_mode, n_arms, *, N: int,
-                          L: int, K: int, P: int, m: int, n: int,
-                          g: int, dp_impl: str = "auto"):
-    """Same as poa_full_batch but packs everything into ONE int32 array
-    [B, 2N+2] (codes | support | len | ovf) so the host needs a single
-    device->host transfer per dispatch (high-latency links)."""
-    return _poa_full_batch_packed_impl(
-        arms, arm_len, arm_mode, n_arms, N=N, L=L, K=K, P=P,
-        m=m, n=n, g=g, dp_impl=resolve_dp_impl(dp_impl))
+@jax.jit
+def concat_tiles(*tiles):
+    """Concatenate tile outputs on the device, so that many tiles come
+    back to the host in one transfer."""
+    return jnp.concatenate(tiles, axis=0)

@@ -18,17 +18,20 @@ class Monitor:
         self._start = None
         self._t0 = time.time()
         self.stream = stream or sys.stderr
+        self.times = []   # (message, seconds) per stop()/total()
 
     def start(self) -> None:
         self._start = time.time()
 
     def stop(self, msg: str) -> str:
         elapsed = time.time() - (self._start or self._t0)
+        self.times.append((msg, elapsed))
         stamp = f"{elapsed:.2f} sec; peak RSS {_rss_gb():.2f} GB"
         print(f"{msg}[{stamp}]", file=self.stream)
         return stamp
 
     def total(self, msg: str) -> None:
         elapsed = time.time() - self._t0
+        self.times.append((msg, elapsed))
         print(f"{msg}[{elapsed:.2f} sec total; peak RSS {_rss_gb():.2f} GB]",
               file=self.stream)

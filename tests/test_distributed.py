@@ -1,7 +1,7 @@
 """Multi-host distribution glue (hypo_tpu/parallel/distributed.py).
 
-The reference has no distributed layer (SURVEY §2.3); these validate the
-TPU-native one: deterministic contiguous contig sharding, the global
+The reference has no distributed layer (SURVEY §2.3); these validate
+this one: deterministic contiguous contig sharding, the global
 k-mer count merges (filesystem and psum on the virtual 8-device mesh),
 and the rank-0 FASTA gather."""
 import os

@@ -79,10 +79,9 @@ def test_short_only_no_coverage_keeps_draft(tmp_path):
 
 def test_device_full_output_matches_host_engine(tmp_path):
     """The device engine's native tile fast path must produce the SAME
-    polished FASTA as the host engine (short-only and hybrid).  On CPU
-    the tile program runs through the XLA dp_impl; the device/host
-    comparison on real TPU hardware is covered by bench.py's md5
-    check."""
+    polished FASTA as the host engine (short-only and hybrid).  Here
+    the tile program runs on the CPU backend; chip_smoke.py makes the
+    same comparison on the GPU."""
     import hypo_tpu.io.fasta as fasta
     for kw, seed in (({}, 21),
                      (dict(long_cov=25, dropout=(0.4, 0.5)), 22)):

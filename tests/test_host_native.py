@@ -8,8 +8,13 @@ from hypo_tpu.config import MINIMIZER_SETTINGS as MS
 from hypo_tpu.dna import canonical_kmers, kmer_codes
 from hypo_tpu.native import host_api
 
-pytestmark = pytest.mark.skipif(not host_api.available(),
-                                reason="native host lib unavailable")
+@pytest.fixture(autouse=True)
+def _native_built():
+    """Builds (on first use) and loads the native libraries; decided
+    here rather than at import, where xdist workers would all compile
+    while collecting."""
+    if not (host_api.available()):
+        pytest.skip("native host lib unavailable")
 
 
 class FakeAln:

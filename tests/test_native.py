@@ -9,8 +9,13 @@ from hypo_tpu.poa import Graph, PoaAligner, NW, LOV, ROV
 from hypo_tpu.poa.engine import ConsensusEngine
 from hypo_tpu.pipeline.window import Window, SHORT, LONG
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native lib unavailable (no g++)")
+@pytest.fixture(autouse=True)
+def _native_built():
+    """Builds (on first use) and loads the native libraries; decided
+    here rather than at import, where xdist workers would all compile
+    while collecting."""
+    if not (native.available()):
+        pytest.skip("native lib unavailable (no g++)")
 
 
 def rand_seq(rng, lo, hi):

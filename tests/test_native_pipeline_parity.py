@@ -8,9 +8,13 @@ import pytest
 
 from hypo_tpu.native import bam_api, host_api
 
-pytestmark = pytest.mark.skipif(
-    not (host_api.available() and bam_api.available()),
-    reason="native libs unavailable")
+@pytest.fixture(autouse=True)
+def _native_built():
+    """Builds (on first use) and loads the native libraries; decided
+    here rather than at import, where xdist workers would all compile
+    while collecting."""
+    if not (host_api.available() and bam_api.available()):
+        pytest.skip("native libs unavailable")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -9,8 +9,13 @@ import pytest
 from hypo_tpu.native import host_api
 from hypo_tpu.sim import SimConfig, simulate
 
-pytestmark = pytest.mark.skipif(not host_api.available(),
-                                reason="native host lib unavailable")
+@pytest.fixture(autouse=True)
+def _native_built():
+    """Builds (on first use) and loads the native libraries; decided
+    here rather than at import, where xdist workers would all compile
+    while collecting."""
+    if not (host_api.available()):
+        pytest.skip("native host lib unavailable")
 
 
 def _md5(path: str, gz: bool) -> str:
